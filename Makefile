@@ -1,5 +1,5 @@
 # Convenience targets; the native library also builds lazily on first
-# use (mcmc_ammsb_tpu/native.py).
+# use (mcmc_ammsb/native.py).
 
 CXX ?= g++
 CXXFLAGS ?= -O3 -march=native -std=c++17 -shared -fPIC

@@ -1,4 +1,4 @@
-// Native host-side graph sampler for mcmc_ammsb_tpu.
+// Native host-side graph sampler for mcmc_ammsb.
 //
 // Role: the high-throughput host half of the training pipeline — SNAP
 // edge-list parsing and minibatch sampling over CSR adjacency — the
@@ -6,7 +6,7 @@
 // (/root/reference/mcmc/sample.cc:177-302) and graph ETL
 // (/root/reference/mcmc/data.cc:36-78), built as a small C library
 // bound via ctypes (no pybind11 in this image). Strategy semantics
-// mirror mcmc_ammsb_tpu/sampling.py exactly; tests cross-check the two.
+// mirror mcmc_ammsb/sampling.py exactly; tests cross-check the two.
 //
 // Thread-free, allocation-light: one call fills a whole stack of padded
 // minibatches so Python overhead amortizes across steps.
@@ -328,7 +328,7 @@ int64_t snap_parse(const char* path, int64_t cap, int64_t* out_u,
 
 // ---------------------------------------------------------------------------
 // CHD perfect-hash construction (the native fast path behind
-// mcmc_ammsb_tpu/ops/edgeset.py::_build_perfect_host; hash functions and
+// mcmc_ammsb/ops/edgeset.py::_build_perfect_host; hash functions and
 // greedy order match the numpy implementation bit for bit so both paths
 // build identical tables).
 // ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ network this script fetches, checksums-by-size, and unpacks the ladder:
 
 then run each rung end-to-end:
 
-    python scripts/run_ladder.py --data data/ --out bench_results/
+    python scripts/run_ladder.py --data data/ --out ladder_out/
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ def fetch(name: str, dest: str) -> str:
     os.unlink(gz_path)
 
     # sanity: parse with the repo loader and compare against SNAP stats
-    from mcmc_ammsb_tpu.data import load_snap_edges
+    from mcmc_ammsb.data import load_snap_edges
     n, u, v = load_snap_edges(txt_path)
     print(f"{name}: parsed N={n} E={len(u)} "
           f"(SNAP publishes N={n_nodes} E={n_edges})")

@@ -3,12 +3,11 @@
 artifact per rung — the reference's primary experiment output
 (/root/reference/main.cc:160-168).
 
-With real SNAP files (scripts/fetch_datasets.py) it runs them; in this
-zero-egress image it substitutes scale-matched synthetic graphs so a
-trajectory artifact exists per rung attempted (flagged "synthetic" in
-the output JSON).
+With real SNAP files in --data it runs them; otherwise it substitutes
+scale-matched synthetic graphs so a trajectory artifact exists per rung
+attempted (flagged "synthetic" in the output JSON).
 
-    python scripts/run_ladder.py --out bench_results/ [--data data/]
+    python scripts/run_ladder.py --out ladder_out/ [--data data/]
     python scripts/run_ladder.py --rungs ca-HepPh com-dblp --iters 2000
 """
 
@@ -36,16 +35,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 # exactly the backend regime those real datasets would select.
 #
 # Heavy-tailed rungs run with ds_link_cap=32 (Horvitz-Thompson hub
-# subsampling, beta gradient exactly unbiased — scripts/
-# exp_powerlaw_cap.py measured held-out ppx parity to 0.13%): without
-# it every device batch pays hub-degree buffer cost (the com-dblp
-# shape runs 4.75x faster capped) and the window engine re-engages.
+# subsampling, beta gradient exactly unbiased): without it every
+# device batch pays hub-degree buffer cost, and the cap lets the
+# window engine re-engage.
 #
-# com-lj's reference K=4096 cannot fit one chip (pi [4M, 4096] is
-# 65 GB fp32 / 33 GB bf16 — the sharded RowPartitionedMatrix
-# generalization over a real pod is the faithful configuration);
-# the single-chip rung runs K=1024 bf16 (8.2 GB) and records
-# K_reference in the artifact.
+# com-lj's reference K=4096 needs pi [4M, 4096] = 65 GB fp32 / 33 GB
+# bf16 (the sharded RowPartitionedMatrix generalization over several
+# cards is the faithful configuration); the single-device rung runs
+# K=1024 bf16 (8.2 GB) and records K_reference in the artifact.
 RUNGS = {
     "ca-HepPh": ("ca-HepPh.txt", 64, (12_008, 19.7, 491), {}),
     "com-dblp": ("com-dblp.ungraph.txt", 256, (317_080, 6.6, 343),
@@ -61,11 +58,11 @@ RUNGS = {
 
 def run_rung(name: str, data_dir: str, out_dir: str, iters: int,
              interval: int) -> dict:
-    from mcmc_ammsb_tpu.config import Config, EdgeSetBackend
-    from mcmc_ammsb_tpu.data import (Graph, generate_sets,
-                                     load_snap_edges,
-                                     synthetic_powerlaw_edges)
-    from mcmc_ammsb_tpu.learner import Learner
+    from mcmc_ammsb.config import Config, EdgeSetBackend
+    from mcmc_ammsb.data import (Graph, generate_sets,
+                                 load_snap_edges,
+                                 synthetic_powerlaw_edges)
+    from mcmc_ammsb.learner import Learner
 
     stem, k, (syn_n, syn_deg, syn_max), extra = RUNGS[name]
     extra = dict(extra)
@@ -103,7 +100,7 @@ def run_rung(name: str, data_dir: str, out_dir: str, iters: int,
     # readbacks (depth 2, 8000-step chunk floor) and stamps each eval
     # with its chunk's materialization wall clock (ev["t"]), so the
     # artifact's time axis stays real WITHOUT serializing the loop on
-    # one ~25 ms transfer per eval (exp_eval_overhead.py ladder)
+    # one transfer per eval
     base_t = time.perf_counter()
     wall0 = time.time() - t0
     for ev in learner.run_with_ppx(iters, min(interval, iters)):
@@ -144,7 +141,7 @@ def run_rung(name: str, data_dir: str, out_dir: str, iters: int,
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--data", default="data")
-    ap.add_argument("--out", default="bench_results")
+    ap.add_argument("--out", default="ladder_out")
     ap.add_argument("--rungs", nargs="*",
                     default=["ca-HepPh", "com-dblp", "com-youtube",
                              "com-lj"])

@@ -1,8 +1,12 @@
 """Pure-numpy oracle of the reference update math, written straight from
 the formulas in /root/reference/mcmc/phi.cc:84-122, beta.cc:86-137 and
 perplexity.cc:16-65. Used to validate the JAX ops (the role the
-cross-mode golden tests play in the reference, wg-phi-test.cc etc.)."""
+cross-mode golden tests play in the reference, wg-phi-test.cc etc.).
+``bf_oracle`` replays the device breadth-first sampler in plain python,
+reading the same jax.random draws the device consumes."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 
@@ -134,3 +138,98 @@ def mmsb_theta_grads_oracle(cfg, theta_b, b, pi, edge_oracle, eu, ev):
         want[..., 1] += r * ((1.0 if y else 0.0) / theta_b[..., 1]
                              - 1 / ts)
     return 0.5 * (want + want.transpose(1, 0, 2))
+
+
+# ---------------------------------------------------------------------
+# device breadth-first sampler: python replay on the same jax.random draws
+# ---------------------------------------------------------------------
+
+def bf_oracle(cfg, graph, training_keys, key, s_len, kind):
+    """Sequential replay of ops/device_sampling._bf_expand's semantics
+    on the same jax.random draws. Returns per-step ordered edge
+    lists."""
+    P, R, m = cfg.ds_bf_pops, cfg.ds_bf_rounds, cfg.mini_batch_size
+    q_cap = 1 + (R - 1) * P
+    if kind == "link":
+        C = max(1, min(cfg.max_fan_out, 2 * cfg.mini_batch_size))
+    else:
+        C = 32
+
+    # pre-evaluate every RNG draw the device makes, in its key order
+    piv, draws = {}, {}
+    for r in range(R):
+        kr = jax.random.fold_in(key, r)
+        for t in range(3):
+            piv[(r, t)] = np.asarray(jax.random.randint(
+                jax.random.fold_in(kr, t), (s_len,), 0, cfg.N, jnp.int32))
+        if kind == "non":
+            kc = jax.random.fold_in(kr, 9)
+            for t in range(cfg.ds_nonlink_rounds + 1):
+                draws[(r, t)] = np.asarray(jax.random.randint(
+                    jax.random.fold_in(kc, t), (s_len, P, C), 0, cfg.N,
+                    jnp.int32))
+
+    out = []
+    for s in range(s_len):
+        q, head, seen, edges, eset = [], 0, set(), [], set()
+        for r in range(R):
+            tail = len(q)
+            if tail == head and len(edges) < m:
+                p = int(piv[(r, 0)][s])
+                for t in range(2):
+                    if p in seen:
+                        p = int(piv[(r, t + 1)][s])
+                if tail < q_cap:
+                    q.append(p)
+                    tail += 1
+            pops = q[head:head + P]
+            head += len(pops)
+            ecnt0 = len(edges)
+            fresh_so_far = 0
+            level_valid = set()
+            expanded_now = set()
+            for i, u in enumerate(pops):
+                if u in seen or u in expanded_now:
+                    continue
+                expanded_now.add(u)
+                if kind == "link":
+                    cands = [(int(v), True)
+                             for v in graph.neighbors_of(u)[:C]]
+                else:
+                    cands = []
+                    for c in range(C):
+                        v = int(draws[(r, 0)][s, i, c])
+                        for t in range(cfg.ds_nonlink_rounds):
+                            bad = (v == u
+                                   or (min(u, v), max(u, v))
+                                   in training_keys)
+                            if bad:
+                                v = int(draws[(r, t + 1)][s, i, c])
+                        bad = (v == u
+                               or (min(u, v), max(u, v)) in training_keys)
+                        cands.append((v, not bad))
+                for v, ok in cands:
+                    if not ok:
+                        continue
+                    ab = (min(u, v), max(u, v))
+                    fresh = ab not in eset and ab not in level_valid
+                    before = ecnt0 + fresh_so_far
+                    if fresh:
+                        fresh_so_far += 1
+                        if before < m:
+                            edges.append(ab)
+                            eset.add(ab)
+                    if before < m and len(q) < q_cap:
+                        q.append(v)
+                    level_valid.add(ab)
+            seen |= expanded_now
+        out.append(edges)
+    return out
+
+
+def device_edges(ds, step):
+    """Ordered valid (u, v) edges of step ``step`` of a device batch."""
+    mask = np.asarray(ds.edge_mask)[step]
+    eu = np.asarray(ds.edges_u)[step][mask]
+    ev = np.asarray(ds.edges_v)[step][mask]
+    return list(zip(eu.tolist(), ev.tolist()))

@@ -3,17 +3,18 @@ clock), a real tiny-shape probe, and the CLI flag.
 
 The reference leaves its kernel tunables (wg sizes, vector widths, phi
 modes) to the user (/root/reference/main.cc:61-76); autotune.py picks
-the TPU analog (the fused window size T) by on-device measurement."""
+this system's analog (the fused window size T) by on-device
+measurement."""
 
 import logging
 
 import pytest
 
-from mcmc_ammsb_tpu import cli
-from mcmc_ammsb_tpu.autotune import (probe_rate, tune_window,
-                                     window_candidates)
-from mcmc_ammsb_tpu.config import Config, SampleStrategy
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb import cli
+from mcmc_ammsb.autotune import (probe_rate, tune_window,
+                                 window_candidates)
+from mcmc_ammsb.config import Config, SampleStrategy
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -43,71 +44,10 @@ def test_window_candidates_filtering():
                           strategy=SampleStrategy.NODE_LINK)
     assert window_candidates(host) == [0]
 
-    # hub-padded heavy-tail batches (max_batch_nodes > 64): windows
-    # lose at every T (docs/design.md) — candidates collapse to [0]
+    # hub-padded heavy-tail batches (max_batch_nodes > 64): the
+    # correction codes scale with T * B_cap — candidates collapse to [0]
     hub, _, _ = tiny_cfg(batch_nodes_cap=65)
     assert window_candidates(hub) == [0]
-
-    # kernel VMEM envelope (ops/window.py): big K*T*C working sets
-    # faulted the TPU worker — filtered from the probe list
-    cfg2, _, _ = tiny_cfg()
-    big = cfg2.replace(K=256)
-    c64 = window_candidates(big, num_chains=64)
-    assert 0 in c64 and 6 in c64
-    assert 16 not in c64 and 12 not in c64   # > envelope at C=64
-    # the measured K=8192 cliff at reference batch shapes (B=33, n=32)
-    ref_b, _, _ = tiny_cfg(mini_batch_size=32, num_node_sample=32)
-    c1 = window_candidates(ref_b.replace(K=8192))
-    assert 12 not in c1 and 6 in c1
-
-
-def test_vmem_envelope_math():
-    """The envelope estimate reproduces the measured cliff: every
-    known-good shape fits, the worker-faulting shape does not."""
-    from mcmc_ammsb_tpu.ops.window import (VMEM_ENVELOPE_BYTES,
-                                           window_working_set_bytes)
-    good = [
-        (4096, 12, 1, 33, 32),    # K=4096 single-chain T=12: 20.3k
-        (8192, 6, 1, 33, 32),     # K=8192 bf16 T=6: 10.9k
-        (256, 12, 16, 33, 32),    # chains C=16 T=12 (compiles, runs)
-        (256, 6, 32, 33, 32),     # chains C=32 T=6: 112.3k
-    ]
-    for shape in good:
-        assert window_working_set_bytes(*shape) <= VMEM_ENVELOPE_BYTES
-    # K=8192 T=12 faulted the TPU worker (docs/design.md)
-    assert window_working_set_bytes(8192, 12, 1, 33, 32) \
-        > VMEM_ENVELOPE_BYTES
-
-
-def test_window_kernel_call_rejects_over_envelope():
-    """The kernel guard raises a clear error instead of letting an
-    over-envelope shape fault the device."""
-    import jax.numpy as jnp
-
-    from mcmc_ammsb_tpu.ops import window as W
-
-    cfg, _, _ = tiny_cfg()
-    k, t, b, n_s, e = 8192, 12, 33, 32, 33
-    g = jnp.zeros((t, b + n_s, k), jnp.float32)
-    with pytest.raises(ValueError, match="VMEM envelope"):
-        W.window_kernel_call(
-            cfg.replace(K=k), 1, g,
-            jnp.zeros((t, b, 1), jnp.float32),
-            jnp.zeros((t, b, n_s), jnp.float32),
-            jnp.zeros((t, b, n_s), jnp.float32),
-            jnp.zeros((t, b, 1), jnp.float32),
-            jnp.zeros((t, b, k), jnp.float32),
-            jnp.zeros((t, 2, k), jnp.float32),
-            jnp.zeros((t, e, 1), jnp.float32),
-            jnp.zeros((t, e, 1), jnp.float32),
-            jnp.zeros((t, e, 1), jnp.int32),
-            jnp.zeros((t, e, 1), jnp.int32),
-            None,
-            jnp.zeros((t, 1, 1), jnp.float32),
-            jnp.zeros((t, 1), jnp.float32),
-            jnp.zeros((t, 1), jnp.float32),
-            jnp.zeros((2, k), jnp.float32),
-            jnp.zeros((1, k), jnp.float32))
 
 
 class _FakeClock:
@@ -160,7 +100,7 @@ def test_tune_window_skips_failing_candidate():
 
     def make(c):
         if c.window == 12:
-            raise RuntimeError("VMEM")   # e.g. kernel over the ceiling
+            raise RuntimeError("out of memory")
         return _StubLearner(clock, {0: 2e-3, 6: 1e-3, 8: 3e-3,
                                     16: 4e-3}[c.window])
 
@@ -171,7 +111,7 @@ def test_tune_window_skips_failing_candidate():
 
 class _NoisyStubLearner(_StubLearner):
     """First timed probe is 3x slower than steady state — models the
-    one-sided stalls (host contention, tunnel hiccups) that best-of-N
+    one-sided stalls (host contention) that best-of-N
     probing exists to suppress."""
 
     def __init__(self, clock, per_step):
@@ -211,7 +151,7 @@ def test_tune_window_all_fail_raises():
 def test_probe_rate_real_learner():
     """End-to-end probe on a real Learner at tiny shapes: warmup and
     probe both advance the step counter; the rate is finite."""
-    from mcmc_ammsb_tpu.learner import Learner
+    from mcmc_ammsb.learner import Learner
 
     cfg, graph, split = tiny_cfg()
     rate = probe_rate(lambda: Learner(cfg, graph, split),
@@ -220,7 +160,7 @@ def test_probe_rate_real_learner():
 
 
 def test_cli_auto_tune_window(caplog):
-    with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu"):
+    with caplog.at_level(logging.INFO, logger="mcmc_ammsb"):
         rc = cli.main(["--synthetic", "300,8", "-k", "8", "-m", "8",
                        "-n", "4", "--heldout-ratio", "0.1",
                        "-x", "16", "-i", "8", "--steps-per-call", "8",

@@ -1,6 +1,6 @@
 """bf16 pi storage (Config.pi_dtype): compute stays fp32, only the
-stored rows are quantized — the bandwidth lever for K>=2048 where the
-step is gather/scatter-bound (docs/design.md round 2 K=4096 profile).
+stored rows are quantized — the capacity and bandwidth lever for large
+K, where the step's row gathers and scatters move the most bytes.
 
 Contract tested here: state dtype, row normalization within bf16
 quantization, convergence tracking the fp32 run, bit-exact checkpoint
@@ -12,9 +12,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from mcmc_ammsb_tpu.config import Config, PhiImpl, RngBackend
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_sbm_edges
-from mcmc_ammsb_tpu.learner import Learner
+from mcmc_ammsb.config import Config, RngBackend
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_sbm_edges
+from mcmc_ammsb.learner import Learner
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -59,7 +59,7 @@ def test_bf16_tracks_fp32_ppx():
 
 
 def test_bf16_checkpoint_bit_exact_resume(tmp_path):
-    from mcmc_ammsb_tpu.checkpoint import load_checkpoint, save_checkpoint
+    from mcmc_ammsb.checkpoint import load_checkpoint, save_checkpoint
 
     cfg, graph, split = _setup(pi_dtype="bfloat16")
     a = Learner(cfg, graph, split, prefetch=False)
@@ -80,21 +80,18 @@ def test_bf16_checkpoint_bit_exact_resume(tmp_path):
 
 def test_bf16_unsupported_engines_raise():
     cfg, graph, split = _setup(pi_dtype="bfloat16")
-    with pytest.raises(ValueError, match="pi_dtype"):
-        Learner(cfg.replace(phi_impl=PhiImpl.PALLAS), graph, split,
-                prefetch=False)
     with pytest.raises(ValueError, match="pi_dtype|fp32"):
         Learner(cfg.replace(rng_backend=RngBackend.REFERENCE,
                             device_sampling=False), graph, split,
                 prefetch=False)
-    from mcmc_ammsb_tpu.chains import MultiChainLearner
+    from mcmc_ammsb.chains import MultiChainLearner
     with pytest.raises(ValueError, match="fp32"):
         MultiChainLearner(cfg, graph, split, 2)
 
 
 def test_bf16_windowed_single_chip_tracks_fp32():
     """bf16 pi through the single-chip T-step window engine: the bulk
-    gather upcasts, staged VMEM compute is fp32, the window scatter
+    gather upcasts, staged compute is fp32, the window scatter
     quantizes (round 3 lifted the fp32-only window restriction)."""
     cfg, graph, split = _setup(pi_dtype="bfloat16",
                                shared_neighbors=True)
@@ -113,9 +110,8 @@ def test_bf16_flat_chains_state_and_tracks_fp32():
     """bf16 pi on the flat multi-chain engine (round 3): storage
     quantized at the scatter, fp32 compute — per-chain ppx tracks the
     fp32 chains. The capacity knee this exists for: fp32 pi at C=16 x
-    N=317k x K=256 is 5.2 GB (the measured scatter per-row-cost
-    doubling, docs/design.md); bf16 halves it."""
-    from mcmc_ammsb_tpu.chains_flat import FlatChainLearner
+    N=317k x K=256 is 5.2 GB; bf16 halves it."""
+    from mcmc_ammsb.chains_flat import FlatChainLearner
 
     cfg, graph, split = _setup(pi_dtype="bfloat16")
     a = FlatChainLearner(cfg, graph, split, 3)
@@ -130,9 +126,9 @@ def test_bf16_flat_chains_state_and_tracks_fp32():
 
 
 def test_bf16_flat_chains_windowed_tracks_fp32():
-    """The windowed mega-kernel path under bf16 pi: gather upcasts,
+    """The windowed path under bf16 pi: gather upcasts,
     staged compute is fp32, the window scatter quantizes."""
-    from mcmc_ammsb_tpu.chains_flat import FlatChainLearner
+    from mcmc_ammsb.chains_flat import FlatChainLearner
 
     cfg, graph, split = _setup(pi_dtype="bfloat16",
                                shared_neighbors=True)
@@ -153,7 +149,7 @@ def test_bf16_sharded_chains_state_and_convergence():
     import jax
     from jax.sharding import Mesh
 
-    from mcmc_ammsb_tpu.parallel.chains_sharded import (
+    from mcmc_ammsb.parallel.chains_sharded import (
         CHAIN_AXIS, ShardedChainLearner)
 
     if len(jax.devices()) < 2:
@@ -173,7 +169,7 @@ def test_bf16_sharded_state_and_convergence():
     all_gather write-back, upcast in _fetch_rows — the capacity lever
     composed WITH the row sharding (the RowPartitionedMatrix
     generalization, partitioned-alloc.h:87-131)."""
-    from mcmc_ammsb_tpu.parallel import ShardedLearner, make_mesh
+    from mcmc_ammsb.parallel import ShardedLearner, make_mesh
 
     cfg, graph, split = _setup(pi_dtype="bfloat16")
     lrn = ShardedLearner(cfg, graph, split, make_mesh(2, 4),
@@ -194,7 +190,7 @@ def test_bf16_sharded_tracks_single_chip():
     ppx matches the single-chip bf16 run closely (same draws; the only
     deltas are collective reduction order and per-data-shard noise
     stream splits)."""
-    from mcmc_ammsb_tpu.parallel import ShardedLearner, make_mesh
+    from mcmc_ammsb.parallel import ShardedLearner, make_mesh
 
     cfg, graph, split = _setup(pi_dtype="bfloat16")
     a = ShardedLearner(cfg, graph, split, make_mesh(2, 4),
@@ -207,8 +203,8 @@ def test_bf16_sharded_tracks_single_chip():
 
 
 def test_bf16_sharded_checkpoint_bit_exact_resume(tmp_path):
-    from mcmc_ammsb_tpu.checkpoint import load_checkpoint, save_checkpoint
-    from mcmc_ammsb_tpu.parallel import ShardedLearner, make_mesh
+    from mcmc_ammsb.checkpoint import load_checkpoint, save_checkpoint
+    from mcmc_ammsb.parallel import ShardedLearner, make_mesh
 
     cfg, graph, split = _setup(pi_dtype="bfloat16")
     mesh = make_mesh(2, 4)

@@ -4,9 +4,9 @@ perplexity, R-hat diagnostic."""
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.chains import MultiChainLearner, rhat
-from mcmc_ammsb_tpu.config import Config
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_sbm_edges
+from mcmc_ammsb.chains import MultiChainLearner, rhat
+from mcmc_ammsb.config import Config
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_sbm_edges
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -64,7 +64,7 @@ def test_beta_rhat_runs(chain_learner):
 def test_beta_rhat_flat_engine(chain_learner):
     """beta_rhat on the production (flat) engine: same diagnostic over
     state.beta [C, K] via the shared beta_rhat_series helper."""
-    from mcmc_ammsb_tpu.chains_flat import FlatChainLearner
+    from mcmc_ammsb.chains_flat import FlatChainLearner
 
     l = chain_learner  # reuse the module dataset/config
     flat = FlatChainLearner(l.cfg, l.graph, l.split, num_chains=3)
@@ -78,12 +78,12 @@ def test_cli_rhat_draws(caplog):
     validates its preconditions."""
     import logging
 
-    from mcmc_ammsb_tpu import cli
+    from mcmc_ammsb import cli
 
     argv = ["--synthetic", "200,6", "-k", "8", "-m", "8", "-n", "4",
             "--heldout-ratio", "0.1", "--num-chains", "2", "-x", "10",
             "-i", "10", "--steps-per-call", "5", "--rhat-draws", "2"]
-    with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu"):
+    with caplog.at_level(logging.INFO, logger="mcmc_ammsb"):
         rc = cli.main(argv)
     assert rc == 0
     assert "beta R-hat over 2 chains" in caplog.text

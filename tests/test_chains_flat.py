@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.chains_flat import FlatChainLearner
-from mcmc_ammsb_tpu.config import Config
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_sbm_edges
+from mcmc_ammsb.chains_flat import FlatChainLearner
+from mcmc_ammsb.config import Config
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_sbm_edges
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -82,7 +82,7 @@ def test_flat_chains_checkpoint_bit_exact_resume(tmp_path):
     """The multi-chain engine checkpoints like the single-chip learner
     (serialize-test.cc EndToEnd pattern): run, save, run on; restore,
     run the same steps; trajectories bit-exact per chain."""
-    from mcmc_ammsb_tpu.checkpoint import load_checkpoint, save_checkpoint
+    from mcmc_ammsb.checkpoint import load_checkpoint, save_checkpoint
 
     path = str(tmp_path / "flat_ck.npz")
     a = _fresh_flat()
@@ -102,7 +102,7 @@ def test_flat_chains_checkpoint_bit_exact_resume(tmp_path):
 
 
 def test_flat_chains_checkpoint_rejects_chain_mismatch(tmp_path):
-    from mcmc_ammsb_tpu.checkpoint import load_checkpoint, save_checkpoint
+    from mcmc_ammsb.checkpoint import load_checkpoint, save_checkpoint
 
     path = str(tmp_path / "flat_ck2.npz")
     save_checkpoint(path, _fresh_flat(num_chains=2))
@@ -137,7 +137,7 @@ def test_flat_chains_fused_ppx_series_matches_host_loop():
 def test_vmap_chains_shared_neighbors_smoke():
     """The vmap cross-check engine composes train_steps_fused, so
     shared draws work per chain there too."""
-    from mcmc_ammsb_tpu.chains import MultiChainLearner
+    from mcmc_ammsb.chains import MultiChainLearner
 
     n, u, v = synthetic_sbm_edges(250, 4, p_in=0.15, p_out=0.005, seed=21)
     split = generate_sets(n, u, v, heldout_ratio=0.1, seed=22)
@@ -152,11 +152,11 @@ def test_vmap_chains_shared_neighbors_smoke():
     assert np.isfinite(p1).all() and (p1 < p0).all()
 
 
-def _windowed_pair(window, impl, num_chains=3, n_nodes=300):
+def _windowed_pair(window, num_chains=3, n_nodes=300):
     """Sequential vs windowed chain engines on a collision-heavy graph
     (small N makes intra-window collisions frequent, stressing the
-    exact one-hot corrections)."""
-    from mcmc_ammsb_tpu.data import synthetic_edges
+    exact staged-row corrections)."""
+    from mcmc_ammsb.data import synthetic_edges
 
     n, u, v = synthetic_edges(n_nodes, 8, seed=21)
     split = generate_sets(n, u, v, heldout_ratio=0.1, seed=22)
@@ -166,16 +166,15 @@ def _windowed_pair(window, impl, num_chains=3, n_nodes=300):
                  shared_neighbors=True)
     cfg = cfg.finalize(n, split.total_edges, graph.max_fan_out)
     seq = FlatChainLearner(cfg, graph, split, num_chains)
-    win = FlatChainLearner(cfg.replace(window=window, window_impl=impl),
-                           graph, split, num_chains)
+    win = FlatChainLearner(cfg.replace(window=window), graph, split,
+                           num_chains)
     return seq, win
 
 
-@pytest.mark.parametrize("impl", ["jnp", "pallas"])
-def test_windowed_chains_match_sequential(impl):
+def test_windowed_chains_match_sequential():
     """The windowed multi-chain engine reproduces the sequential chain
     scan's trajectory — all chains, collision corrections included."""
-    seq, win = _windowed_pair(window=4, impl=impl)
+    seq, win = _windowed_pair(window=4)
     seq.run(24)
     win.run(24)
     assert int(win.state.step_count) == int(seq.state.step_count)
@@ -192,7 +191,7 @@ def test_windowed_chains_match_sequential(impl):
 def test_windowed_chains_tail_and_ppx_series():
     """Non-multiple tails run sequentially; the fused per-chain eval
     series matches the sequential engine's."""
-    seq, win = _windowed_pair(window=5, impl="jnp")
+    seq, win = _windowed_pair(window=5)
     s1 = seq.run_with_ppx(23, 6)
     s2 = win.run_with_ppx(23, 6)
     assert [e["step"] for e in s1] == [e["step"] for e in s2]
@@ -202,7 +201,7 @@ def test_windowed_chains_tail_and_ppx_series():
 
 
 def test_windowed_chains_require_shared_draws():
-    from mcmc_ammsb_tpu.data import synthetic_edges
+    from mcmc_ammsb.data import synthetic_edges
 
     n, u, v = synthetic_edges(300, 8, seed=21)
     split = generate_sets(n, u, v, heldout_ratio=0.1, seed=22)
@@ -218,7 +217,7 @@ def test_windowed_chains_with_link_cap_match_sequential():
     """Capped hub draws flow through the blocked chain window kernel:
     the windowed trajectory equals the sequential chain scan's on a
     heavy-tailed graph with ds_link_cap binding."""
-    from mcmc_ammsb_tpu.data import synthetic_powerlaw_edges
+    from mcmc_ammsb.data import synthetic_powerlaw_edges
 
     n, u, v = synthetic_powerlaw_edges(300, 6, exponent=2.2,
                                        max_degree=60, seed=31)

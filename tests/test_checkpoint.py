@@ -5,10 +5,10 @@ restore, run the same steps; trajectories must be bit-exact."""
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.checkpoint import load_checkpoint, save_checkpoint
-from mcmc_ammsb_tpu.config import Config
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-from mcmc_ammsb_tpu.learner import Learner
+from mcmc_ammsb.checkpoint import load_checkpoint, save_checkpoint
+from mcmc_ammsb.config import Config
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb.learner import Learner
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -78,8 +78,8 @@ def test_checkpoint_preserves_timers(tmp_path):
 
 def test_sharded_checkpoint_roundtrip(tmp_path):
     """Sharded save -> sharded restore continues identically."""
-    from mcmc_ammsb_tpu.parallel import ShardedLearner, make_mesh
-    from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
+    from mcmc_ammsb.parallel import ShardedLearner, make_mesh
+    from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
 
     def build():
         n, u, v = synthetic_edges(200, 8, seed=61)
@@ -130,7 +130,7 @@ def test_orbax_bit_exact_resume(tmp_path):
 
 def test_orbax_sharded_roundtrip(tmp_path):
     """Orbax restore places each leaf directly on its mesh sharding."""
-    from mcmc_ammsb_tpu.parallel import ShardedLearner, make_mesh
+    from mcmc_ammsb.parallel import ShardedLearner, make_mesh
 
     def build():
         n, u, v = synthetic_edges(200, 8, seed=61)
@@ -202,7 +202,7 @@ def test_bit_exact_resume_with_prefetch(tmp_path, host_sampler):
     bit-exactly: the checkpoint captures the full host-sampling
     position including produced-but-unconsumed chunks — the in-flight
     state the reference serializes (learner.cc:307-315)."""
-    from mcmc_ammsb_tpu import native
+    from mcmc_ammsb import native
     if host_sampler == "auto" and not native.available():
         pytest.skip("no C++ toolchain")
     path = str(tmp_path / f"ck_{host_sampler}.npz")
@@ -238,7 +238,7 @@ def test_orbax_async_save_is_a_snapshot(tmp_path):
     continue immediately (donated device buffers don't corrupt the
     snapshot), and the finalized checkpoint holds the state AT save
     time — resume from it is bit-exact."""
-    from mcmc_ammsb_tpu.checkpoint import wait_for_async_saves
+    from mcmc_ammsb.checkpoint import wait_for_async_saves
 
     path = str(tmp_path / "ck_async")
     a = fresh_learner()

@@ -7,7 +7,7 @@ import logging
 
 import pytest
 
-from mcmc_ammsb_tpu import cli
+from mcmc_ammsb import cli
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -16,7 +16,7 @@ BASE = ["--synthetic", "300,8", "-k", "8", "-m", "8", "-n", "4",
 
 
 def run_cli(argv, caplog):
-    with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu"):
+    with caplog.at_level(logging.INFO, logger="mcmc_ammsb"):
         rc = cli.main(argv)
     return rc, caplog.text
 
@@ -121,8 +121,7 @@ def test_cli_fused_evals_with_tail(caplog):
 
 def test_cli_train_ppx_rides_fused_evals(caplog):
     """--calc-train-ppx rides INSIDE the fused eval series (round-4
-    fix: it used to force the slow host eval loop, VERDICT r3 weak #3)
-    — every interval logs train_ppx and the values come from the
+    fix: it used to force the slow host eval loop) — every interval logs train_ppx and the values come from the
     packed fused readback (train_steps_fused_ppx row 5)."""
     rc, out = run_cli(BASE + ["-x", "20", "-i", "10",
                               "--steps-per-call", "40",
@@ -161,9 +160,7 @@ def test_cli_periodic_checkpointing(tmp_path, caplog):
 def test_cli_auto_window_heavy_tail_fallback(tmp_path, caplog):
     """Auto-window falls back to the sequential scan when the node
     buffer is hub-degree-padded (max_batch_nodes > 64): the windowed
-    correction contraction scales with T*B_cap and measured SLOWER
-    than sequential at com-DBLP-shaped tails (docs/design.md round 3
-    late, scripts/exp_powerlaw_window.py). --window N still forces."""
+    correction scales with T*B_cap. --window N still forces."""
     # star graph: one hub of degree 80 plus a ring so every node has
     # an edge after the heldout split
     lines = ["# star + ring"]
@@ -174,7 +171,8 @@ def test_cli_auto_window_heavy_tail_fallback(tmp_path, caplog):
     f.write_text("\n".join(lines) + "\n")
     rc, out = run_cli(["--file", str(f), "-k", "8", "-m", "8", "-n",
                        "4", "--heldout-ratio", "0.05", "-x", "20",
-                       "-i", "10", "--steps-per-call", "10"], caplog)
+                       "-i", "10", "--steps-per-call", "10",
+                       "--num-chains", "2"], caplog)
     assert rc == 0
     assert "window auto-set" in out          # auto engaged first...
     assert "window auto-disabled" in out     # ...then the fallback
@@ -192,12 +190,19 @@ def test_cli_auto_window_heavy_tail_fallback(tmp_path, caplog):
 
 
 def test_cli_auto_window_regular_graph(caplog):
-    """On a regular-degree graph the auto window stays on."""
+    """On a regular-degree graph the auto window stays on for flat
+    chains, and stays off for one chain (the measured defaults)."""
+    rc, out = run_cli(BASE + ["-x", "24", "-i", "12",
+                              "--steps-per-call", "12",
+                              "--num-chains", "2"], caplog)
+    assert rc == 0
+    assert f"window auto-set to {cli.AUTO_WINDOW_CHAINS}" in out
+    assert "window auto-disabled" not in out
+    caplog.clear()
     rc, out = run_cli(BASE + ["-x", "24", "-i", "12",
                               "--steps-per-call", "12"], caplog)
     assert rc == 0
-    assert "window auto-set to 12" in out
-    assert "window auto-disabled" not in out
+    assert "window auto-set" not in out
 
 
 def test_cli_synthetic_powerlaw_with_cap(caplog):
@@ -220,8 +225,8 @@ def test_cli_restore_ref_checkpoint(tmp_path, caplog):
     the cross-implementation bridge is CLI-reachable."""
     import numpy as np
 
-    from mcmc_ammsb_tpu.data import generate_sets, synthetic_edges
-    from mcmc_ammsb_tpu.refckpt import write_reference_checkpoint
+    from mcmc_ammsb.data import generate_sets, synthetic_edges
+    from mcmc_ammsb.refckpt import write_reference_checkpoint
 
     # replicate the CLI's --synthetic 300,8 dataset exactly
     # (synthetic seed=1, --split-seed default 12345) so the imported

@@ -16,9 +16,9 @@ code at round 2, verified identical across independent runs).
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_sbm_edges
-from mcmc_ammsb_tpu.learner import Learner
+from mcmc_ammsb.config import Config
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_sbm_edges
+from mcmc_ammsb.learner import Learner
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -35,7 +35,7 @@ PINNED_TRAJECTORY = [3.898526, 3.511903, 3.443108, 3.420263,
 
 
 def build_learner():
-    from mcmc_ammsb_tpu.config import EdgeSetBackend
+    from mcmc_ammsb.config import EdgeSetBackend
     n, u, v = synthetic_sbm_edges(2000, 8, p_in=0.05, p_out=0.001, seed=5)
     split = generate_sets(n, u, v, heldout_ratio=0.05, seed=6)
     graph = Graph.from_edges(n, split.training_u, split.training_v)

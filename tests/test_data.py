@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.data import (Graph, dump_dataset, generate_sets,
-                                 load_dataset, load_snap_edges,
-                                 renumber_dedup_shuffle, synthetic_edges)
-from mcmc_ammsb_tpu.types import canonicalize, pack_edges, unpack_edges
+from mcmc_ammsb.data import (Graph, dump_dataset, generate_sets,
+                             load_dataset, load_snap_edges,
+                             renumber_dedup_shuffle, synthetic_edges)
+from mcmc_ammsb.types import canonicalize, pack_edges, unpack_edges
 
 
 def test_pack_unpack_roundtrip():
@@ -98,7 +98,7 @@ def test_dataset_cache_reference_format(tmp_path, small_dataset):
     dump_dataset(path, n, 0.25, u, v, fmt="ref")
 
     # byte-level layout check against a hand-built reference stream
-    from mcmc_ammsb_tpu.types import pack_edges
+    from mcmc_ammsb.types import pack_edges
     expect = (np.uint64(n).astype("<u8").tobytes()
               + np.float32(0.25).astype("<f4").tobytes()
               + np.uint64(len(u)).astype("<u8").tobytes()
@@ -134,7 +134,7 @@ def test_dump_unknown_format_raises(tmp_path):
 
 
 def test_synthetic_sbm_structure():
-    from mcmc_ammsb_tpu.data import synthetic_sbm_edges
+    from mcmc_ammsb.data import synthetic_sbm_edges
     n, u, v = synthetic_sbm_edges(600, 4, p_in=0.2, p_out=0.002, seed=5)
     assert n <= 600
     assert np.all(u < v)
@@ -148,7 +148,7 @@ def test_powerlaw_generator_heavy_tail_and_labels():
     (max >> avg, unlike the near-regular uniform generator), planted
     structure (intra-community edge share ~ intra_fraction), labels
     aligned with renumbered ids."""
-    from mcmc_ammsb_tpu.data import Graph, synthetic_powerlaw_edges
+    from mcmc_ammsb.data import Graph, synthetic_powerlaw_edges
 
     n, u, v, labels = synthetic_powerlaw_edges(
         5000, 8.0, exponent=2.5, max_degree=150, num_communities=8,
@@ -163,5 +163,5 @@ def test_powerlaw_generator_heavy_tail_and_labels():
     assert intra > 0.6                  # planted structure present
     # canonical, deduped, no self loops (generator contract)
     assert (u < v).all()
-    from mcmc_ammsb_tpu.types import pack_edges
+    from mcmc_ammsb.types import pack_edges
     assert len(np.unique(pack_edges(u, v))) == len(u)

@@ -18,13 +18,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config, EdgeSetBackend, SampleStrategy
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-from mcmc_ammsb_tpu.learner import Learner
-from mcmc_ammsb_tpu.ops.device_sampling import (
+from mcmc_ammsb.config import Config, EdgeSetBackend, SampleStrategy
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb.learner import Learner
+from mcmc_ammsb.ops.device_sampling import (
     sample_minibatch_device, sample_minibatches_device)
-from mcmc_ammsb_tpu.ops.edgeset import build_edge_set
-from mcmc_ammsb_tpu.types import pack_edges
+from mcmc_ammsb.ops.edgeset import build_edge_set
+from mcmc_ammsb.types import pack_edges
+
+from oracle import bf_oracle, device_edges
 
 
 @pytest.fixture(scope="module")
@@ -44,92 +46,6 @@ def _cfg(setup, strategy, **kw):
     cfg = Config(K=8, mini_batch_size=16, num_node_sample=8,
                  strategy=strategy, device_sampling=True, **kw)
     return cfg.finalize(n, split.total_edges, graph.max_fan_out)
-
-
-# ---------------------------------------------------------------------
-# oracle: python replay of _bf_expand on the same jax.random draws
-# ---------------------------------------------------------------------
-
-def _bf_oracle(cfg, graph, training_keys, key, s_len, kind):
-    """Sequential replay of _bf_expand's semantics. Returns per-step
-    ordered edge lists."""
-    P, R, m = cfg.ds_bf_pops, cfg.ds_bf_rounds, cfg.mini_batch_size
-    q_cap = 1 + (R - 1) * P
-    if kind == "link":
-        C = max(1, min(cfg.max_fan_out, 2 * cfg.mini_batch_size))
-    else:
-        C = 32
-
-    # pre-evaluate every RNG draw the device makes, in its key order
-    piv, draws = {}, {}
-    for r in range(R):
-        kr = jax.random.fold_in(key, r)
-        for t in range(3):
-            piv[(r, t)] = np.asarray(jax.random.randint(
-                jax.random.fold_in(kr, t), (s_len,), 0, cfg.N, jnp.int32))
-        if kind == "non":
-            kc = jax.random.fold_in(kr, 9)
-            for t in range(cfg.ds_nonlink_rounds + 1):
-                draws[(r, t)] = np.asarray(jax.random.randint(
-                    jax.random.fold_in(kc, t), (s_len, P, C), 0, cfg.N,
-                    jnp.int32))
-
-    out = []
-    for s in range(s_len):
-        q, head, seen, edges, eset = [], 0, set(), [], set()
-        for r in range(R):
-            tail = len(q)
-            if tail == head and len(edges) < m:
-                p = int(piv[(r, 0)][s])
-                for t in range(2):
-                    if p in seen:
-                        p = int(piv[(r, t + 1)][s])
-                if tail < q_cap:
-                    q.append(p)
-                    tail += 1
-            pops = q[head:head + P]
-            head += len(pops)
-            ecnt0 = len(edges)
-            fresh_so_far = 0
-            level_valid = set()
-            expanded_now = set()
-            for i, u in enumerate(pops):
-                if u in seen or u in expanded_now:
-                    continue
-                expanded_now.add(u)
-                if kind == "link":
-                    cands = [(int(v), True)
-                             for v in graph.neighbors_of(u)[:C]]
-                else:
-                    cands = []
-                    for c in range(C):
-                        v = int(draws[(r, 0)][s, i, c])
-                        for t in range(cfg.ds_nonlink_rounds):
-                            bad = (v == u
-                                   or (min(u, v), max(u, v))
-                                   in training_keys)
-                            if bad:
-                                v = int(draws[(r, t + 1)][s, i, c])
-                        bad = (v == u
-                               or (min(u, v), max(u, v)) in training_keys)
-                        cands.append((v, not bad))
-                for v, ok in cands:
-                    if not ok:
-                        continue
-                    ab = (min(u, v), max(u, v))
-                    fresh = ab not in eset and ab not in level_valid
-                    before = ecnt0 + fresh_so_far
-                    if fresh:
-                        fresh_so_far += 1
-                        if before < m:
-                            edges.append(ab)
-                            eset.add(ab)
-                    if before < m and len(q) < q_cap:
-                        q.append(v)
-                    level_valid.add(ab)
-            seen |= expanded_now
-        out.append(edges)
-    return out
 
 
 def _host_bf_link_walk(graph, pivot, m):
@@ -152,13 +68,6 @@ def _host_bf_link_walk(graph, pivot, m):
     return edges
 
 
-def _device_edges(ds, step):
-    mask = np.asarray(ds.edge_mask)[step]
-    eu = np.asarray(ds.edges_u)[step][mask]
-    ev = np.asarray(ds.edges_v)[step][mask]
-    return list(zip(eu.tolist(), ev.tolist()))
-
-
 def test_bf_link_matches_oracle_bitwise(setup):
     n, split, graph, tr, ho = setup
     cfg = _cfg(setup, SampleStrategy.BF_LINK)
@@ -169,9 +78,9 @@ def test_bf_link_matches_oracle_bitwise(setup):
         cfg, tr, ho, k, s_len, adjacency=(
             jnp.asarray(graph.offsets, jnp.int32),
             jnp.asarray(graph.cols, jnp.int32))))(key)
-    oracle = _bf_oracle(cfg, graph, None, k_link, s_len, "link")
+    oracle = bf_oracle(cfg, graph, None, k_link, s_len, "link")
     for s in range(s_len):
-        assert _device_edges(ds, s) == oracle[s]
+        assert device_edges(ds, s) == oracle[s]
         m_eff = len(oracle[s])
         assert float(np.asarray(ds.weight)[s]) == pytest.approx(
             cfg.E / max(m_eff, 1))
@@ -195,7 +104,7 @@ def test_bf_link_matches_unbounded_host_walk(setup):
         pivot = int(np.asarray(jax.random.randint(
             jax.random.fold_in(kr, 0), (s_len,), 0, cfg.N,
             jnp.int32))[s])
-        edges = _device_edges(ds, s)
+        edges = device_edges(ds, s)
         assert len(edges) == cfg.mini_batch_size
         assert edges == _host_bf_link_walk(graph, pivot,
                                            cfg.mini_batch_size)
@@ -211,9 +120,9 @@ def test_bf_non_link_matches_oracle_bitwise(setup):
                             graph.edges_v.tolist()))
     ds = jax.jit(lambda k: sample_minibatches_device(
         cfg, tr, ho, k, s_len))(key)
-    oracle = _bf_oracle(cfg, graph, training_keys, k_non, s_len, "non")
+    oracle = bf_oracle(cfg, graph, training_keys, k_non, s_len, "non")
     for s in range(s_len):
-        assert _device_edges(ds, s) == oracle[s]
+        assert device_edges(ds, s) == oracle[s]
 
 
 def test_bf_non_link_properties(setup):
@@ -252,7 +161,7 @@ def test_bf_coin_selects_both(setup):
         cfg, tr, ho, k, s_len, adjacency=adj))(jax.random.PRNGKey(5))
     kinds = []
     for s in range(s_len):
-        edges = _device_edges(ds, s)
+        edges = device_edges(ds, s)
         in_train = [(int(pack_edges(np.array([a]), np.array([b]))[0])
                      in training) for a, b in edges]
         assert all(in_train) or not any(in_train)
@@ -271,7 +180,7 @@ def test_bf_alternate_coin_strict(setup):
     ds = jax.jit(lambda k: sample_minibatches_device(
         cfg, tr, ho, k, s_len, adjacency=adj))(jax.random.PRNGKey(6))
     for s in range(s_len):
-        edges = _device_edges(ds, s)
+        edges = device_edges(ds, s)
         in_train = [(int(pack_edges(np.array([a]), np.array([b]))[0])
                      in training) for a, b in edges]
         assert all(in_train) == (s % 2 == 0)    # even steps = links
@@ -297,8 +206,8 @@ def test_bf_link_fused_loop_trains(setup):
 def test_bf_mixed_fused_loop_matches_host_behavior(setup):
     """The mixed BF strategy does NOT monotonically reduce held-out ppx
     on tiny graphs (the BFNonLink weight (N(N-1)/2-E)/m dwarfs the link
-    signal — the HOST path shows the same curve, measured in
-    docs/design.md round 4); the fused e2e contract is that the device
+    signal — the HOST path shows the same curve); the fused e2e
+    contract is that the device
     path stays finite and runs the full step budget."""
     n, split, graph, tr, ho = setup
     cfg = Config(K=8, mini_batch_size=8, num_node_sample=8,
@@ -315,13 +224,13 @@ def test_bf_mixed_fused_loop_matches_host_behavior(setup):
 
 
 def test_bf_link_hub_graph_bitwise():
-    """Cap-binding regime (VERDICT r4 weak #5): on a power-law graph
+    """Cap-binding regime: on a power-law graph
     whose max fan-out is far beyond the 2m row-gather cap, the device
     BFLink batch STILL bit-equals the unbounded host FIFO walk — the
     truncation is exact at any degree, because an expansion processes
     at most m row positions before the host walk breaks (see the
     _sample_bf_link_batch docstring proof)."""
-    from mcmc_ammsb_tpu.data import synthetic_powerlaw_edges
+    from mcmc_ammsb.data import synthetic_powerlaw_edges
 
     n, u, v = synthetic_powerlaw_edges(600, 6.0, max_degree=200,
                                        seed=31)
@@ -351,7 +260,7 @@ def test_bf_link_hub_graph_bitwise():
         pivot = int(np.asarray(jax.random.randint(
             jax.random.fold_in(kr, 0), (s_len,), 0, cfg.N,
             jnp.int32))[s])
-        edges = _device_edges(ds, s)
+        edges = device_edges(ds, s)
         want = _host_bf_link_walk(graph, pivot, cfg.mini_batch_size)
         if len(want) == cfg.mini_batch_size:
             # single-component walk filled the batch: the device

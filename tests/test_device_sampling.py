@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config, EdgeSetBackend, SampleStrategy
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-from mcmc_ammsb_tpu.learner import Learner
-from mcmc_ammsb_tpu.ops.device_sampling import sample_minibatch_device
-from mcmc_ammsb_tpu.ops.edgeset import build_edge_set
-from mcmc_ammsb_tpu.types import pack_edges
+from mcmc_ammsb.config import Config, EdgeSetBackend, SampleStrategy
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb.learner import Learner
+from mcmc_ammsb.ops.device_sampling import sample_minibatch_device
+from mcmc_ammsb.ops.edgeset import build_edge_set
+from mcmc_ammsb.types import pack_edges
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +105,7 @@ def test_device_non_link_weight_unbiased_under_collisions():
     ho = build_edge_set(EdgeSetBackend.CSR, n, split.heldout_u,
                         split.heldout_v)
 
-    from mcmc_ammsb_tpu.ops.device_sampling import \
+    from mcmc_ammsb.ops.device_sampling import \
         sample_minibatches_device
     s_len = 512
     ds = jax.jit(lambda k: sample_minibatches_device(
@@ -125,7 +125,7 @@ def test_alternate_coin_strict_stratification(setup):
     """node_coin='alternate': steps strictly alternate link (weight N,
     all edges share the pivot) and non-link (weight 2E/m_eff) draws,
     and each draw individually satisfies its strategy's invariants."""
-    from mcmc_ammsb_tpu.ops.device_sampling import \
+    from mcmc_ammsb.ops.device_sampling import \
         sample_minibatches_device
 
     n, split, graph, tr, ho = setup
@@ -154,7 +154,7 @@ def test_alternate_coin_strict_stratification(setup):
 def test_alternate_coin_chain_period(setup):
     """alt_period=C alternates by STEP: every chain of a step draws
     the same kind (no chain is pinned to one strategy)."""
-    from mcmc_ammsb_tpu.ops.device_sampling import \
+    from mcmc_ammsb.ops.device_sampling import \
         sample_minibatches_device
 
     n, split, graph, tr, ho = setup
@@ -194,7 +194,7 @@ def test_structural_nodes_match_sorted_dedup(setup):
     """_structural_nodes (lane 0 = pivot, lane 1+i = edge lane i's
     partner; no sorts) is set-equal per batch to the sort-based
     _extract_nodes golden for every Node-family strategy."""
-    from mcmc_ammsb_tpu.ops.device_sampling import (
+    from mcmc_ammsb.ops.device_sampling import (
         _extract_nodes, sample_minibatches_device)
 
     n, split, graph, tr, ho = setup
@@ -286,7 +286,7 @@ def test_link_cap_shrinks_buffers_and_validates():
 def test_link_cap_hub_batches_valid_and_reweighted(hub_setup):
     """Capped hub draws: distinct training edges through the pivot,
     HT weight N/p; small-degree pivots keep the exact reference batch."""
-    from mcmc_ammsb_tpu.ops.device_sampling import sample_minibatches_device
+    from mcmc_ammsb.ops.device_sampling import sample_minibatches_device
     d, graph, tr, ho = hub_setup
     cap = 8
     cfg = Config(K=4, mini_batch_size=cap, num_node_sample=4,
@@ -322,7 +322,7 @@ def test_link_cap_weight_unbiased(hub_setup):
     """E[weight * kept-edge count | pivot] == N * degree(pivot) — the
     invariant the take-all path satisfies exactly, recovered in
     expectation by the Horvitz-Thompson reweight on capped hubs."""
-    from mcmc_ammsb_tpu.ops.device_sampling import sample_minibatches_device
+    from mcmc_ammsb.ops.device_sampling import sample_minibatches_device
     d, graph, tr, ho = hub_setup
     cfg = Config(K=4, mini_batch_size=8, num_node_sample=4,
                  strategy=SampleStrategy.NODE_LINK, device_sampling=True,
@@ -341,7 +341,7 @@ def test_link_cap_weight_unbiased(hub_setup):
 def test_link_cap_off_is_bit_exact():
     """cap >= max_fan_out (or cap unset) leaves the draw stream
     untouched — pinned trajectories stay pinned."""
-    from mcmc_ammsb_tpu.ops.device_sampling import sample_minibatches_device
+    from mcmc_ammsb.ops.device_sampling import sample_minibatches_device
     n, u, v = synthetic_edges(300, 8, seed=4)
     split = generate_sets(n, u, v, heldout_ratio=0.1, seed=5)
     graph = Graph.from_edges(n, split.training_u, split.training_v)
@@ -365,7 +365,7 @@ def test_link_cap_off_is_bit_exact():
 def test_link_cap_fused_loop_trains_on_powerlaw():
     """End-to-end: the fused device-sampled loop trains on a
     heavy-tailed graph with buffers sized by the cap, not the hub."""
-    from mcmc_ammsb_tpu.data import synthetic_powerlaw_edges
+    from mcmc_ammsb.data import synthetic_powerlaw_edges
     n, u, v = synthetic_powerlaw_edges(600, avg_degree=8, exponent=2.2,
                                        seed=7)
     split = generate_sets(n, u, v, heldout_ratio=0.05, seed=8)

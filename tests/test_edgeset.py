@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import EdgeSetBackend
-from mcmc_ammsb_tpu.data import synthetic_edges
-from mcmc_ammsb_tpu.ops.edgeset import build_edge_set
-from mcmc_ammsb_tpu.types import pack_edges
+from mcmc_ammsb.config import EdgeSetBackend
+from mcmc_ammsb.data import synthetic_edges
+from mcmc_ammsb.ops.edgeset import build_edge_set
+from mcmc_ammsb.types import pack_edges
 
 BACKENDS = [EdgeSetBackend.CSR, EdgeSetBackend.SORTED, EdgeSetBackend.CUCKOO,
             EdgeSetBackend.PERFECT, EdgeSetBackend.ADJACENCY]
@@ -84,7 +84,7 @@ def test_adjacency_broadcast_query_shapes(edge_data):
 def test_auto_backend_resolution():
     """AUTO -> adjacency when the [N, max_deg] matrix fits the budget,
     else the perfect hash."""
-    from mcmc_ammsb_tpu.ops import edgeset as es_mod
+    from mcmc_ammsb.ops import edgeset as es_mod
     n, u, v = synthetic_edges(num_nodes=300, avg_degree=8, seed=3)
     assert build_edge_set(EdgeSetBackend.AUTO, n, u, v).backend == \
         "adjacency"

@@ -1,11 +1,11 @@
-"""Driver-contract tests for __graft_entry__.
+"""Entry-point contract tests for __graft_entry__.
 
-The driver imports the module in its own interpreter — sometimes after
+A caller imports the module in its own interpreter — sometimes after
 having already initialized a JAX backend — and calls
-``dryrun_multichip(8)`` with NO environment preparation. Round 1's one
-hard failure was exactly this path (MULTICHIP_r01.json rc=1: the
-function assumed devices already existed), so these tests invoke it the
-way the driver does: a fresh subprocess, JAX-related env stripped.
+``dryrun_multichip(8)`` with NO environment preparation. An early
+failure was exactly this path (the function assumed devices already
+existed), so these tests invoke it the way such a caller does: a fresh
+subprocess, JAX-related env stripped.
 """
 
 import os

@@ -6,11 +6,11 @@ import jax
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config, PhiImpl, RngBackend, SampleStrategy
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-from mcmc_ammsb_tpu.learner import Learner
-from mcmc_ammsb_tpu.sampling import MiniBatchSampler
-from mcmc_ammsb_tpu.types import pack_edges
+from mcmc_ammsb.config import Config, RngBackend, SampleStrategy
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb.learner import Learner
+from mcmc_ammsb.sampling import MiniBatchSampler
+from mcmc_ammsb.types import pack_edges
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -163,11 +163,10 @@ def test_empty_heldout_guard():
 
 @pytest.mark.parametrize("cfg_kw", [
     {"steps_per_call": 4, "rng_backend": RngBackend.REFERENCE},
-    {"steps_per_call": 4, "K": 128, "phi_impl": PhiImpl.PALLAS},
 ])
 def test_scan_in_loop_body_paths(cfg_kw):
-    """The scan's in-loop body branch (reference RNG backend / pallas
-    phi) trains and advances counters like the hoisted path."""
+    """The scan's in-loop body branch (reference RNG backend) trains
+    and advances counters like the hoisted path."""
     learner, _ = make_learner(cfg_kw)
     p0 = learner.heldout_perplexity()
     learner.run(12)
@@ -202,7 +201,7 @@ def test_edgeset_backends_trajectory_identical():
     """Membership backends answer identical queries, so full training
     trajectories must be bit-identical across them — pins the perfect
     hash as a pure drop-in for the CSR search."""
-    from mcmc_ammsb_tpu.config import EdgeSetBackend
+    from mcmc_ammsb.config import EdgeSetBackend
 
     a, _ = make_learner({"steps_per_call": 5,
                          "edgeset_backend": EdgeSetBackend.CSR})
@@ -308,7 +307,7 @@ def test_cli_fast_default_resolution():
     """resolve_fast_defaults: fast path auto-on for Node-family +
     native RNG; reference-exact combos stay on the host path;
     explicit flags always win."""
-    from mcmc_ammsb_tpu import cli
+    from mcmc_ammsb import cli
 
     args = cli.build_arg_parser().parse_args(["--synthetic", "100,4"])
     cli.resolve_fast_defaults(args)
@@ -324,10 +323,8 @@ def test_cli_fast_default_resolution():
     args = cli.build_arg_parser().parse_args(
         ["--synthetic", "100,4", "-s", "BF"])
     cli.resolve_fast_defaults(args)
-    # breadth-first auto-defaults to the fused device family (measured
-    # >= host at every BF strategy, 2.4x on BFLink —
-    # scripts/exp_bf_rate.py); shared draws / windows stay
-    # Node-family-only (the only measured configs)
+    # breadth-first auto-defaults to the fused device family; shared
+    # draws / windows stay Node-family-only
     assert args.device_sampling
     assert not args.shared_neighbors
     assert args.window == 0

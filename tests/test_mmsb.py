@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config, EdgeSetBackend
-from mcmc_ammsb_tpu.data import (Graph, generate_sets, synthetic_edges,
-                                 synthetic_sbm_edges)
-from mcmc_ammsb_tpu.models.mmsb import (FullMMSBLearner, mmsb_phi_rows,
-                                        mmsb_theta_grads)
-from mcmc_ammsb_tpu.ops.edgeset import build_edge_set
+from mcmc_ammsb.config import Config, EdgeSetBackend
+from mcmc_ammsb.data import (Graph, generate_sets, synthetic_edges,
+                             synthetic_sbm_edges)
+from mcmc_ammsb.models.mmsb import (FullMMSBLearner, mmsb_phi_rows,
+                                    mmsb_theta_grads)
+from mcmc_ammsb.ops.edgeset import build_edge_set
 
 from oracle import mmsb_phi_oracle, mmsb_theta_grads_oracle
 
@@ -185,8 +185,8 @@ def test_mmsb_shared_core_matches_naive_on_shared_set(mmsb_fixture):
     shared core must reproduce the naive [B,n,K] core (same math, two
     schedules — the cross-mode validation pattern of wg-phi-test.cc)."""
     import jax.numpy as jnp
-    from mcmc_ammsb_tpu.models.mmsb import (_phi_rows_core,
-                                            _phi_rows_core_shared)
+    from mcmc_ammsb.models.mmsb import (_phi_rows_core,
+                                        _phi_rows_core_shared)
 
     cfg, graph, pi, phi_sum, theta_b, b, es = mmsb_fixture
     rng = np.random.RandomState(3)
@@ -244,7 +244,7 @@ def test_mmsb_chains_train_and_improve(shared):
     the full model's label-symmetric plateau lets individual chains
     wander — the module-docstring behavior test_mmsb_trains_stably
     also tolerates.)"""
-    from mcmc_ammsb_tpu.models.mmsb import MMSBChainLearner
+    from mcmc_ammsb.models.mmsb import MMSBChainLearner
 
     cfg, graph, split = _chain_setup(steps_per_call=50,
                                      shared_neighbors=shared)
@@ -265,7 +265,7 @@ def test_mmsb_chains_train_and_improve(shared):
 def test_mmsb_chains_are_independent():
     """Chains start from distinct seeds and evolve independently: no
     two chains share state after training."""
-    from mcmc_ammsb_tpu.models.mmsb import MMSBChainLearner
+    from mcmc_ammsb.models.mmsb import MMSBChainLearner
 
     cfg, graph, split = _chain_setup()
     lrn = MMSBChainLearner(cfg, graph, split, num_chains=2)
@@ -279,7 +279,7 @@ def test_mmsb_chains_are_independent():
 def test_mmsb_chains_fused_ppx_series():
     """run_with_ppx returns the per-chain series; trajectories match
     the chunked run bit-exactly."""
-    from mcmc_ammsb_tpu.models.mmsb import MMSBChainLearner
+    from mcmc_ammsb.models.mmsb import MMSBChainLearner
 
     cfg, graph, split = _chain_setup(steps_per_call=40)
     a = MMSBChainLearner(cfg, graph, split, num_chains=2)
@@ -297,7 +297,7 @@ def test_mmsb_chain_single_matches_single_chain_sampling_law():
     """A 1-chain MMSBChainLearner uses the same init law as
     FullMMSBLearner (init_seed + 0) and produces a working trajectory
     with identical initial state."""
-    from mcmc_ammsb_tpu.models.mmsb import MMSBChainLearner
+    from mcmc_ammsb.models.mmsb import MMSBChainLearner
 
     cfg, graph, split = _chain_setup(device_sampling=True)
     chain = MMSBChainLearner(cfg, graph, split, num_chains=1)
@@ -311,7 +311,7 @@ def test_mmsb_chain_single_matches_single_chain_sampling_law():
 def test_mmsb_device_sampled_with_link_cap():
     """Degree-capped NodeLink flows through the MMSB fused loop: a
     heavy-tailed graph trains with buffers sized by the cap."""
-    from mcmc_ammsb_tpu.data import synthetic_powerlaw_edges
+    from mcmc_ammsb.data import synthetic_powerlaw_edges
 
     n, u, v = synthetic_powerlaw_edges(400, 6, exponent=2.2,
                                        max_degree=80, seed=51)

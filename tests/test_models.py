@@ -2,14 +2,15 @@
 
 import jax
 import numpy as np
+import pytest
 
-from mcmc_ammsb_tpu.cli import build_arg_parser, config_from_args
-from mcmc_ammsb_tpu.config import (Config, EdgeSetBackend, PhiImpl,
-                                   RngBackend, SampleStrategy)
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-from mcmc_ammsb_tpu.learner import DeviceBatch
-from mcmc_ammsb_tpu.models import AMMSB
-from mcmc_ammsb_tpu.sampling import MiniBatchSampler
+from mcmc_ammsb.cli import build_arg_parser, config_from_args
+from mcmc_ammsb.config import (Config, EdgeSetBackend, RngBackend,
+                               SampleStrategy)
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb.learner import DeviceBatch
+from mcmc_ammsb.models import AMMSB
+from mcmc_ammsb.sampling import MiniBatchSampler
 
 
 def test_ammsb_surface():
@@ -37,7 +38,7 @@ def test_cli_arg_parsing():
     args = build_arg_parser().parse_args([
         "--synthetic", "100,4", "-k", "64", "-m", "16", "-n", "8",
         "-a", "0.05", "-b", "512", "-c", "0.33", "-e", "1e-6",
-        "-r", "0.02", "-s", "BFLink", "--phi-impl", "pallas",
+        "-r", "0.02", "-s", "BFLink",
         "--edgeset", "sorted", "--rng", "reference",
         "--steps-per-call", "50", "--device-sampling",
         "--calc-train-ppx", "--phi-seed", "7", "8",
@@ -48,8 +49,18 @@ def test_cli_arg_parsing():
     assert (cfg.a, cfg.b, cfg.c) == (0.05, 512.0, 0.33)
     assert cfg.epsilon == 1e-6 and cfg.heldout_ratio == 0.02
     assert cfg.strategy == SampleStrategy.BF_LINK
-    assert cfg.phi_impl == PhiImpl.PALLAS
     assert cfg.edgeset_backend == EdgeSetBackend.SORTED
     assert cfg.rng_backend == RngBackend.REFERENCE
     assert cfg.steps_per_call == 50 and cfg.device_sampling
     assert cfg.calc_train_ppx and cfg.phi_seed == (7, 8)
+
+
+@pytest.mark.parametrize("flag", [["--phi-impl", "pallas"],
+                                  ["--window-impl", "jnp"]])
+def test_removed_kernel_flags_are_rejected(flag, capsys):
+    """The phi and window kernel selectors are gone; passing one is an
+    error, not a silent no-op."""
+    with pytest.raises(SystemExit) as exc:
+        build_arg_parser().parse_args(["--synthetic", "100,4"] + flag)
+    assert exc.value.code == 2
+    assert flag[0] in capsys.readouterr().err

@@ -13,8 +13,8 @@ import sys
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.data import Graph, load_snap_edges, synthetic_edges
-from mcmc_ammsb_tpu.parallel import multihost
+from mcmc_ammsb.data import Graph, load_snap_edges, synthetic_edges
+from mcmc_ammsb.parallel import multihost
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -101,7 +101,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
-from mcmc_ammsb_tpu.parallel import multihost
+from mcmc_ammsb.parallel import multihost
 multihost.initialize(coordinator_address=f"localhost:{{port}}",
                      num_processes=nproc, process_id=proc_id)
 assert jax.process_count() == nproc
@@ -114,9 +114,9 @@ local = np.asarray([10, 20, 30]) + 100 * proc_id
 vocab = multihost.global_vocab(local)
 assert vocab.tolist() == [10, 20, 30, 110, 120, 130], vocab
 
-from mcmc_ammsb_tpu.config import Config
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-from mcmc_ammsb_tpu.parallel import ShardedLearner
+from mcmc_ammsb.config import Config
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb.parallel import ShardedLearner
 n, u, v = synthetic_edges(256, 8, seed=33)
 split = generate_sets(n, u, v, heldout_ratio=0.1, seed=34)
 graph = Graph.from_edges(n, split.training_u, split.training_v)

@@ -5,11 +5,11 @@ cross-mode kernel tests)."""
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu import native
-from mcmc_ammsb_tpu.config import Config, SampleStrategy
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-from mcmc_ammsb_tpu.sampling import MiniBatchSampler
-from mcmc_ammsb_tpu.types import pack_edges
+from mcmc_ammsb import native
+from mcmc_ammsb.config import Config, SampleStrategy
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb.sampling import MiniBatchSampler
+from mcmc_ammsb.types import pack_edges
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C++ toolchain")
@@ -85,7 +85,7 @@ def test_native_snap_parse(tmp_path, setup):
 
 
 def test_native_matches_python_parser(tmp_path):
-    from mcmc_ammsb_tpu.data import load_snap_edges, renumber_dedup_shuffle
+    from mcmc_ammsb.data import load_snap_edges, renumber_dedup_shuffle
     rng = np.random.RandomState(0)
     a = rng.randint(0, 1000, 5000)
     b = rng.randint(0, 1000, 5000)
@@ -117,7 +117,7 @@ def test_native_snap_parse_rejects_malformed(tmp_path, setup):
 
 
 def test_gz_always_native_raises(tmp_path):
-    from mcmc_ammsb_tpu.data import load_snap_edges
+    from mcmc_ammsb.data import load_snap_edges
     import gzip as _gz
     p = tmp_path / "g.txt.gz"
     with _gz.open(p, "wt") as f:
@@ -133,7 +133,7 @@ def test_native_chd_build_matches_numpy(setup):
     """Native and numpy CHD constructions must produce identical tables
     (same greedy order, same hashes)."""
     import numpy as np
-    from mcmc_ammsb_tpu.ops import edgeset as es
+    from mcmc_ammsb.ops import edgeset as es
     rng = np.random.RandomState(7)
     a = rng.randint(0, 3000, 20000)
     b = rng.randint(0, 3000, 20000)
@@ -176,7 +176,7 @@ def test_ref_theta_init_bit_stream():
     assert abs(big.mean() - 6.0) < 0.1
     assert abs(big.var() - 18.0) < 1.0
 
-    from mcmc_ammsb_tpu.learner import init_state
+    from mcmc_ammsb.learner import init_state
 
     n, u, v = synthetic_edges(60, 6, seed=3)
     split = generate_sets(n, u, v, heldout_ratio=0.2, seed=4)

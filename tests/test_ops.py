@@ -12,13 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config, EdgeSetBackend
-from mcmc_ammsb_tpu.ops import beta as beta_ops
-from mcmc_ammsb_tpu.ops import perplexity as ppx_ops
-from mcmc_ammsb_tpu.ops import phi as phi_ops
-from mcmc_ammsb_tpu.ops.edgeset import build_edge_set
-from mcmc_ammsb_tpu.ops.neighbor import sample_neighbors
-from mcmc_ammsb_tpu.ops.rowops import row_normalize, row_sums, slice_normalize
+from mcmc_ammsb.config import Config, EdgeSetBackend
+from mcmc_ammsb.ops import beta as beta_ops
+from mcmc_ammsb.ops import perplexity as ppx_ops
+from mcmc_ammsb.ops import phi as phi_ops
+from mcmc_ammsb.ops.edgeset import build_edge_set
+from mcmc_ammsb.ops.neighbor import sample_neighbors
+from mcmc_ammsb.ops.rowops import row_normalize, row_sums, slice_normalize
 
 from oracle import (beta_grads_oracle, perplexity_oracle, phi_oracle,
                     theta_step_oracle)
@@ -174,7 +174,7 @@ def test_perplexity_matches_oracle(model_fixture, small_dataset):
 
 
 def test_row_sort():
-    from mcmc_ammsb_tpu.ops.rowops import row_sort
+    from mcmc_ammsb.ops.rowops import row_sort
     rng = np.random.RandomState(3)
     for cols in [2, 7, 64, 128, 1000]:  # incl. non-powers-of-2
         x = rng.rand(5, cols).astype(np.float32)
@@ -183,7 +183,7 @@ def test_row_sort():
 
 
 def test_perplexity_rejects_empty_population():
-    from mcmc_ammsb_tpu.ops.perplexity import perplexity_core
+    from mcmc_ammsb.ops.perplexity import perplexity_core
     cfg = Config(K=4, num_node_sample=4).finalize(10, 20, 5)
     z = jnp.zeros((0, 4))
     with pytest.raises(ValueError, match="held-out"):

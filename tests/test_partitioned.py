@@ -1,6 +1,6 @@
 """Partitioned (multi-host capacity) path tests.
 
-The end-to-end contract (VERDICT r3 #2): a ShardedLearner built from
+The end-to-end contract: a ShardedLearner built from
 per-shard ingest — model-row-sharded CSR for BOTH membership and
 sampling adjacency, no host Graph anywhere — reproduces the
 replicated-graph engine's trajectory bit-for-bit, and no process ever
@@ -19,15 +19,15 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from mcmc_ammsb_tpu.config import Config
-from mcmc_ammsb_tpu.data import synthetic_edges
-from mcmc_ammsb_tpu.parallel import ShardedLearner, make_mesh
-from mcmc_ammsb_tpu.parallel.mesh import MODEL_AXIS
-from mcmc_ammsb_tpu.parallel.partitioned import (ShardedCSR,
-                                                 build_sharded_csr,
-                                                 heldout_link_mask,
-                                                 partitioned_ingest,
-                                                 to_datasplit)
+from mcmc_ammsb.config import Config
+from mcmc_ammsb.data import synthetic_edges
+from mcmc_ammsb.parallel import ShardedLearner, make_mesh
+from mcmc_ammsb.parallel.mesh import MODEL_AXIS
+from mcmc_ammsb.parallel.partitioned import (ShardedCSR,
+                                             build_sharded_csr,
+                                             heldout_link_mask,
+                                             partitioned_ingest,
+                                             to_datasplit)
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -84,8 +84,8 @@ def test_sharded_csr_membership_and_adjacency_golden(small_dataset):
     exactly like the replicated structures (python-set membership, the
     _TupleAdj view) — the cuckoo-test.cc pattern for the sharded
     layout."""
-    from mcmc_ammsb_tpu.ops.device_sampling import _TupleAdj
-    from mcmc_ammsb_tpu.data import Graph
+    from mcmc_ammsb.ops.device_sampling import _TupleAdj
+    from mcmc_ammsb.data import Graph
 
     n, split, graph = small_dataset
     mesh = make_mesh(2, 4)
@@ -192,9 +192,9 @@ def test_partitioned_train_ppx_population_bit_equal():
     """make_training_ppx_edges_partitioned reproduces the replicated
     builder's population EXACTLY (same link head in canonical order,
     same RandomState non-link stream) without the host graph
-    (VERDICT r4 #8; learner.cc:48-74)."""
-    from mcmc_ammsb_tpu.data import make_training_ppx_edges
-    from mcmc_ammsb_tpu.parallel.partitioned import (
+    ( learner.cc:48-74)."""
+    from mcmc_ammsb.data import make_training_ppx_edges
+    from mcmc_ammsb.parallel.partitioned import (
         make_training_ppx_edges_partitioned)
 
     mesh, pdata, _ = make_pdata()
@@ -231,14 +231,14 @@ def test_partitioned_train_ppx_series_bit_equal():
 
 @pytest.mark.parametrize("strat", ["BFLink", "BFNonLink", "BF"])
 def test_partitioned_bf_family_matches_replicated(strat):
-    """The breadth-first family runs in partitioned mode (VERDICT r4
-    missing #4 leftover): the device BF samplers consume the
+    """The breadth-first family runs in partitioned mode: the device BF
+    samplers consume the
     model-row-sharded CSR through the same degree/row_gather/has_edges
     collectives the Node family uses (ops/device_sampling.py takes any
     adjacency with the protocol), so a from_partitioned run is
     bit-identical to the replicated-graph sharded engine on every BF
     strategy (/root/reference/mcmc/sample.cc:177-248 semantics)."""
-    from mcmc_ammsb_tpu.config import SampleStrategy
+    from mcmc_ammsb.config import SampleStrategy
 
     mesh, pdata, _ = make_pdata()
     graph, split = to_datasplit(pdata)
@@ -263,7 +263,7 @@ def test_ingest_from_snap_file(tmp_path):
     """The byte-range file path: single-process ingest of a SNAP file
     reproduces the full loader's edge universe (training + heldout
     links == all unique canonical edges)."""
-    from mcmc_ammsb_tpu.data import load_snap_edges
+    from mcmc_ammsb.data import load_snap_edges
 
     rng = np.random.RandomState(11)
     ids = rng.choice(50_000, size=300, replace=False)
@@ -298,7 +298,7 @@ def test_cli_partitioned_ingest(tmp_path, caplog, strategy):
     which partitioned mode requires)."""
     import logging
 
-    from mcmc_ammsb_tpu import cli
+    from mcmc_ammsb import cli
 
     rng = np.random.RandomState(13)
     ids = rng.choice(40_000, size=300, replace=False)
@@ -310,7 +310,7 @@ def test_cli_partitioned_ingest(tmp_path, caplog, strategy):
     p = tmp_path / "g.txt"
     p.write_text("\n".join(lines) + "\n")
 
-    with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu"):
+    with caplog.at_level(logging.INFO, logger="mcmc_ammsb"):
         rc = cli.main(["--file", str(p), "--partitioned-ingest",
                        "--mesh", "2,4", "-k", "8", "-m", "8", "-n", "4",
                        "-s", strategy,
@@ -330,7 +330,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
-from mcmc_ammsb_tpu.parallel import multihost
+from mcmc_ammsb.parallel import multihost
 multihost.initialize(coordinator_address=f"localhost:{{port}}",
                      num_processes=nproc, process_id=proc_id)
 assert jax.process_count() == nproc
@@ -343,10 +343,10 @@ devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
 grid = np.array([[devs[0], devs[2]], [devs[1], devs[3]]])
 mesh = Mesh(grid, ("data", "model"))
 
-from mcmc_ammsb_tpu.config import Config
-from mcmc_ammsb_tpu.data import synthetic_edges
-from mcmc_ammsb_tpu.parallel import ShardedLearner
-from mcmc_ammsb_tpu.parallel.partitioned import partitioned_ingest
+from mcmc_ammsb.config import Config
+from mcmc_ammsb.data import synthetic_edges
+from mcmc_ammsb.parallel import ShardedLearner
+from mcmc_ammsb.parallel.partitioned import partitioned_ingest
 
 n, u, v = synthetic_edges(256, 8, seed=33)
 E = len(u)
@@ -401,7 +401,7 @@ def test_two_process_partitioned_end_to_end(tmp_path):
 
 
 def test_partitioned_resume_bit_exact(tmp_path):
-    """VERDICT r4 #3: a partitioned run can be killed and resumed to
+    """a partitioned run can be killed and resumed to
     the same trajectory. Save at step 20 (orbax: the pod backend,
     per-host shard writes), restore into a FRESH from_partitioned
     learner, run 20 more — bit-identical to an uninterrupted 40-step
@@ -411,7 +411,7 @@ def test_partitioned_resume_bit_exact(tmp_path):
                  device_sampling=True, steps_per_call=10)
     cfg = cfg.finalize(pdata.num_nodes, pdata.num_edges,
                        pdata.max_fan_out)
-    from mcmc_ammsb_tpu.checkpoint import load_checkpoint, save_checkpoint
+    from mcmc_ammsb.checkpoint import load_checkpoint, save_checkpoint
 
     straight = ShardedLearner.from_partitioned(cfg, pdata, mesh)
     straight.run(40)
@@ -437,11 +437,10 @@ def test_partitioned_resume_bit_exact(tmp_path):
 
 def test_cli_partitioned_restore_and_interval(tmp_path, caplog):
     """_main_partitioned drives --checkpoint-interval, --restore and
-    --profile from the command line (VERDICT r4 #4: the pod driver can
-    resume)."""
+    --profile from the command line (a pod run can resume)."""
     import logging
 
-    from mcmc_ammsb_tpu import cli
+    from mcmc_ammsb import cli
 
     rng = np.random.RandomState(17)
     ids = rng.choice(40_000, size=300, replace=False)
@@ -458,14 +457,14 @@ def test_cli_partitioned_restore_and_interval(tmp_path, caplog):
             "-k", "8", "-m", "8", "-n", "4", "--heldout-ratio", "0.1",
             "-i", "10", "--steps-per-call", "5",
             "--checkpoint", ck, "--checkpoint-backend", "orbax"]
-    with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu"):
+    with caplog.at_level(logging.INFO, logger="mcmc_ammsb"):
         rc = cli.main(base + ["-x", "20", "--checkpoint-interval", "10"])
     assert rc == 0
     out = caplog.text
     assert "[async]" in out           # periodic orbax saves are async
     caplog.clear()
 
-    with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu"):
+    with caplog.at_level(logging.INFO, logger="mcmc_ammsb"):
         rc = cli.main(base + ["-x", "10", "--restore", ck, "--profile"])
     assert rc == 0
     out = caplog.text

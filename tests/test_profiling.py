@@ -6,10 +6,10 @@ profile_stages upper bounds, these shares sum to the fused step time)."""
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-from mcmc_ammsb_tpu.learner import Learner
-from mcmc_ammsb_tpu.utils import profiling
+from mcmc_ammsb.config import Config
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb.learner import Learner
+from mcmc_ammsb.utils import profiling
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -74,8 +74,8 @@ def test_sharded_fused_stage_profile():
     reference's per-kernel timers): the shard_map bodies' named scopes
     must survive into the compiled program and attribute device time,
     with pi_gather/pi_scatter covering the collectives."""
-    from mcmc_ammsb_tpu.parallel.mesh import make_mesh
-    from mcmc_ammsb_tpu.parallel.sharded import ShardedLearner
+    from mcmc_ammsb.parallel.mesh import make_mesh
+    from mcmc_ammsb.parallel.sharded import ShardedLearner
 
     n, u, v = synthetic_edges(300, 8, seed=41)
     split = generate_sets(n, u, v, heldout_ratio=0.1, seed=42)

@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.rng import reference as ref
-from mcmc_ammsb_tpu.rng import refblock
+from mcmc_ammsb.rng import reference as ref
+from mcmc_ammsb.rng import refblock
 
 
 def _seeds(seed_pair, lanes):
@@ -136,9 +136,9 @@ def test_neighbors_block_mask_semantics():
 def test_learner_block_vs_loop_bit_exact():
     """End-to-end: the full reference-backend training trajectory is
     bit-identical whichever decoder runs (Config.ref_rng_block)."""
-    from mcmc_ammsb_tpu.config import Config, RngBackend
-    from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-    from mcmc_ammsb_tpu.learner import Learner
+    from mcmc_ammsb.config import Config, RngBackend
+    from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+    from mcmc_ammsb.learner import Learner
 
     def build(block):
         n, u, v = synthetic_edges(200, 8, seed=41)

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.rng import reference as ref
+from mcmc_ammsb.rng import reference as ref
 
 
 def xorshift128p_oracle(state, steps):
@@ -143,9 +143,9 @@ def test_ziggurat_tables_structural():
 def test_learner_with_reference_backend():
     """End-to-end: training with the reference RNG backend converges and
     is deterministic across runs (same seeds -> same trajectory)."""
-    from mcmc_ammsb_tpu.config import Config, RngBackend
-    from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-    from mcmc_ammsb_tpu.learner import Learner
+    from mcmc_ammsb.config import Config, RngBackend
+    from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+    from mcmc_ammsb.learner import Learner
 
     def build():
         n, u, v = synthetic_edges(200, 8, seed=41)

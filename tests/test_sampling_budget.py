@@ -12,9 +12,9 @@ addition mirrored across both of our host paths.
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config, SampleStrategy
-from mcmc_ammsb_tpu.data import Graph, generate_sets
-from mcmc_ammsb_tpu.sampling import MiniBatchSampler, SamplerExhausted
+from mcmc_ammsb.config import Config, SampleStrategy
+from mcmc_ammsb.data import Graph, generate_sets
+from mcmc_ammsb.sampling import MiniBatchSampler, SamplerExhausted
 
 
 def complete_graph(n):

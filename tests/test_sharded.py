@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-from mcmc_ammsb_tpu.learner import Learner
-from mcmc_ammsb_tpu.parallel import ShardedLearner, make_mesh
+from mcmc_ammsb.config import Config
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb.learner import Learner
+from mcmc_ammsb.parallel import ShardedLearner, make_mesh
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -162,7 +162,7 @@ def test_sharded_rejects_reference_rng_loudly():
     """The reference RNG's per-thread streams are single-device
     semantics; requesting them sharded must error, not silently swap
     (round-1 behavior)."""
-    from mcmc_ammsb_tpu.config import RngBackend
+    from mcmc_ammsb.config import RngBackend
     cfg, graph, split = make_pair(
         cfg_kw={"rng_backend": RngBackend.REFERENCE})
     with pytest.raises(ValueError, match="native"):
@@ -201,8 +201,8 @@ def test_sharded_prefetch_resume_bit_exact(tmp_path):
     """The pipelined sharded configuration must checkpoint its in-flight
     host batches and resume bit-exactly — the sharded mirror of the
     single-chip test (reference: learner.cc:307-315)."""
-    from mcmc_ammsb_tpu.checkpoint import load_checkpoint, save_checkpoint
-    from mcmc_ammsb_tpu.config import Config
+    from mcmc_ammsb.checkpoint import load_checkpoint, save_checkpoint
+    from mcmc_ammsb.config import Config
 
     def build():
         n, u, v = synthetic_edges(256, 8, seed=71)
@@ -290,7 +290,7 @@ def test_sharded_device_sampling_with_link_cap():
     """Degree-capped NodeLink flows through the sharded fused loop:
     a heavy-tailed graph trains on the mesh with buffers sized by the
     cap (rounded to mesh multiples), not the hub degree."""
-    from mcmc_ammsb_tpu.data import synthetic_powerlaw_edges
+    from mcmc_ammsb.data import synthetic_powerlaw_edges
 
     n, u, v = synthetic_powerlaw_edges(400, 6, exponent=2.2,
                                        max_degree=80, seed=44)

@@ -6,16 +6,15 @@ Correctness contract mirrors tests/test_window.py (the cross-mode
 validation pattern of /root/reference/mcmc/wg-phi-test.cc:116-158):
 the windowed sharded trajectory must reproduce the UNwindowed sharded
 trajectory (same RNG laws per lane — only float reduction order
-differs), the pallas kernel must match its jnp twin under shard_map,
-and model-axis sharding must stay semantically invisible. Runs on the
+differs), and model-axis sharding must stay semantically invisible. Runs on the
 8-device virtual CPU mesh (conftest)."""
 
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-from mcmc_ammsb_tpu.parallel import ShardedLearner, make_mesh
+from mcmc_ammsb.config import Config
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb.parallel import ShardedLearner, make_mesh
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -42,7 +41,7 @@ def test_sharded_windowed_matches_sequential_sharded(window):
     cfg, graph, split = make_cfg()
     seq = ShardedLearner(cfg, graph, split,
                          make_mesh(2, 2, allow_subset=True))
-    win = ShardedLearner(cfg.replace(window=window, window_impl="jnp"),
+    win = ShardedLearner(cfg.replace(window=window),
                          graph, split,
                          make_mesh(2, 2, allow_subset=True))
     seq.run(24)
@@ -65,7 +64,7 @@ def test_sharded_windowed_tail_steps():
     cfg, graph, split = make_cfg(steps_per_call=23)
     seq = ShardedLearner(cfg, graph, split,
                          make_mesh(2, 2, allow_subset=True))
-    win = ShardedLearner(cfg.replace(window=5, window_impl="jnp"),
+    win = ShardedLearner(cfg.replace(window=5),
                          graph, split,
                          make_mesh(2, 2, allow_subset=True))
     seq.run(23)
@@ -77,31 +76,12 @@ def test_sharded_windowed_tail_steps():
     seq.close(); win.close()
 
 
-def test_sharded_windowed_pallas_matches_jnp_twin():
-    """The mega-kernel inside shard_map (interpret mode on CPU; the
-    same kernel compiles for TPU) reproduces its jnp twin."""
-    cfg, graph, split = make_cfg()
-    a = ShardedLearner(cfg.replace(window=4, window_impl="jnp"),
-                       graph, split, make_mesh(2, 2, allow_subset=True))
-    b = ShardedLearner(cfg.replace(window=4, window_impl="pallas"),
-                       graph, split, make_mesh(2, 2, allow_subset=True))
-    a.run(24)
-    b.run(24)
-    np.testing.assert_allclose(np.asarray(b.state.pi)[: cfg.N],
-                               np.asarray(a.state.pi)[: cfg.N],
-                               rtol=1e-5, atol=1e-8)
-    np.testing.assert_allclose(np.asarray(b.state.theta),
-                               np.asarray(a.state.theta),
-                               rtol=1e-5, atol=1e-8)
-    a.close(); b.close()
-
-
 def test_sharded_windowed_model_axis_invisible():
     """With the data axis fixed, widening the model axis must not
     change the windowed trajectory (the RNG laws depend only on
     n_data): (2,1) vs (2,4) coincide to fp tolerance."""
     cfg, graph, split = make_cfg(seed=95)
-    wcfg = cfg.replace(window=4, window_impl="jnp")
+    wcfg = cfg.replace(window=4)
     a = ShardedLearner(wcfg, graph, split,
                        make_mesh(2, 1, allow_subset=True))
     b = ShardedLearner(wcfg, graph, split, make_mesh(2, 4))
@@ -121,7 +101,7 @@ def test_sharded_windowed_fused_ppx_series():
     cfg, graph, split = make_cfg(steps_per_call=24)
     seq = ShardedLearner(cfg, graph, split,
                          make_mesh(2, 2, allow_subset=True))
-    win = ShardedLearner(cfg.replace(window=4, window_impl="jnp"),
+    win = ShardedLearner(cfg.replace(window=4),
                          graph, split,
                          make_mesh(2, 2, allow_subset=True))
     s1 = seq.run_with_ppx(24, 6)
@@ -137,7 +117,7 @@ def test_sharded_windowed_bf16_pi():
     quantized at the local write application, upcast in the collective
     fetch; training proceeds and rows stay normalized."""
     cfg, graph, split = make_cfg(pi_dtype="bfloat16")
-    lrn = ShardedLearner(cfg.replace(window=4, window_impl="jnp"),
+    lrn = ShardedLearner(cfg.replace(window=4),
                          graph, split, make_mesh(2, 4))
     p0 = lrn.heldout_perplexity()
     lrn.run(48)

@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config, PhiImpl, RngBackend
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_sbm_edges
-from mcmc_ammsb_tpu.learner import Learner
-from mcmc_ammsb_tpu.ops import phi as phi_ops
+from mcmc_ammsb.config import Config, RngBackend
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_sbm_edges
+from mcmc_ammsb.learner import Learner
+from mcmc_ammsb.ops import phi as phi_ops
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
@@ -142,5 +142,3 @@ def test_shared_neighbors_rejects_incompatible_backends(sbm):
     with pytest.raises(ValueError, match="shared_neighbors"):
         make_learner(sbm, shared_neighbors=True,
                      rng_backend=RngBackend.REFERENCE)
-    with pytest.raises(ValueError, match="shared_neighbors"):
-        make_learner(sbm, shared_neighbors=True, phi_impl=PhiImpl.PALLAS)

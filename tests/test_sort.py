@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.ops.sort import bitonic_sort_rows
+from mcmc_ammsb.ops.sort import bitonic_sort_rows
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 32, 100, 128])

@@ -1,8 +1,8 @@
 """T-step windowed fused loop (ops/window.py): exact-semantics golden
 tests against the sequential scan — the cross-mode validation pattern
 of the reference (wg-phi-test.cc:116-158) applied to the window engine:
-three schedules of the same trajectory (sequential scan, windowed jnp,
-windowed pallas) must coincide.
+two schedules of the same trajectory (sequential scan, windowed) must
+coincide.
 
 The small graph (N=300, B=16) makes intra-window collisions FREQUENT,
 so the dirty/clean lax.cond branches are both exercised heavily — the
@@ -14,14 +14,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mcmc_ammsb_tpu.config import Config, PhiImpl, RngBackend
-from mcmc_ammsb_tpu.data import Graph, generate_sets, synthetic_edges
-from mcmc_ammsb_tpu.learner import Learner
+from mcmc_ammsb.config import Config, RngBackend
+from mcmc_ammsb.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb.learner import Learner
 
 pytestmark = pytest.mark.slow  # quick tier: -m 'not slow'
 
 
-def make_pair(n_nodes=300, window=4, impl="jnp", seed=9, **kw):
+def make_pair(n_nodes=300, window=4, seed=9, **kw):
     n, u, v = synthetic_edges(n_nodes, 8, seed=seed)
     split = generate_sets(n, u, v, heldout_ratio=0.1, seed=seed + 1)
     graph = Graph.from_edges(n, split.training_u, split.training_v)
@@ -32,15 +32,15 @@ def make_pair(n_nodes=300, window=4, impl="jnp", seed=9, **kw):
     cfg = Config(**base).finalize(n, split.total_edges,
                                   graph.max_fan_out)
     seq = Learner(cfg, graph, split, prefetch=False)
-    win = Learner(cfg.replace(window=window, window_impl=impl),
-                  graph, split, prefetch=False)
+    win = Learner(cfg.replace(window=window), graph, split,
+                  prefetch=False)
     return cfg, seq, win
 
 
 def test_dirty_windows_unit():
     """Constructed collisions: read-after-write, write-after-write,
     neighbor-read-after-write, and the clean case."""
-    from mcmc_ammsb_tpu.ops.window import _dirty_windows
+    from mcmc_ammsb.ops.window import _dirty_windows
 
     T, B, n = 2, 2, 2
     nodes = np.array([
@@ -87,7 +87,7 @@ def test_windowed_jnp_matches_sequential(window):
     trajectory on collision-heavy data (24 steps, windows of T —
     including a non-dividing tail at T=8 since 24 % 8 == 0; T=5 below
     covers tails)."""
-    cfg, seq, win = make_pair(window=window, impl="jnp")
+    cfg, seq, win = make_pair(window=window)
     seq.run(24)
     win.run(24)
     assert int(win.state.step_count) == int(seq.state.step_count)
@@ -105,7 +105,7 @@ def test_windowed_jnp_matches_sequential(window):
 def test_windowed_tail_steps():
     """steps not divisible by T: the tail runs sequentially and the
     trajectory still matches."""
-    cfg, seq, win = make_pair(window=5, impl="jnp")
+    cfg, seq, win = make_pair(window=5)
     seq.run(23)
     win.run(23)
     assert int(win.state.step_count) == int(seq.state.step_count)
@@ -115,26 +115,10 @@ def test_windowed_tail_steps():
     seq.close(); win.close()
 
 
-def test_windowed_pallas_matches_jnp_twin():
-    """The Pallas mega-kernel reproduces its jnp twin (interpret mode
-    on CPU; the same kernel compiles for TPU)."""
-    cfg, a, b = make_pair(window=4, impl="jnp")
-    _, _, c = make_pair(window=4, impl="pallas")
-    b.run(24)
-    c.run(24)
-    np.testing.assert_allclose(np.asarray(c.state.pi),
-                               np.asarray(b.state.pi),
-                               rtol=1e-5, atol=1e-8)
-    np.testing.assert_allclose(np.asarray(c.state.theta),
-                               np.asarray(b.state.theta),
-                               rtol=1e-5, atol=1e-8)
-    a.close(); b.close(); c.close()
-
-
 def test_windowed_fused_ppx_series_matches():
     """run_with_ppx rides the windowed scan: the eval series matches
     the sequential engine's."""
-    cfg, seq, win = make_pair(window=4, impl="jnp")
+    cfg, seq, win = make_pair(window=4)
     s1 = seq.run_with_ppx(24, 6)
     s2 = win.run_with_ppx(24, 6)
     assert [e["step"] for e in s1] == [e["step"] for e in s2]
@@ -150,31 +134,23 @@ def test_windowed_fused_ppx_series_matches():
 def test_windowed_odd_shapes(m, n_smpl, k, window):
     """Non-power-of-two / ragged shape sweep (the reference tests its
     kernels at wg sizes {2,4,16,32,64,96,113} and ragged lengths,
-    wg-sum-test.cc:22-130): the three schedules — sequential scan,
-    windowed jnp, windowed pallas (interpret) — must coincide at
-    shapes that exercise padding and masking off the friendly tiles."""
-    cfg, seq, win = make_pair(window=window, impl="jnp",
+    wg-sum-test.cc:22-130): the sequential scan and the windowed
+    schedule must coincide at shapes that exercise padding and
+    masking off the friendly tiles."""
+    cfg, seq, win = make_pair(window=window,
                               K=k, mini_batch_size=m,
                               num_node_sample=n_smpl,
                               steps_per_call=4 * window)
-    _, _, win_p = make_pair(window=window, impl="pallas",
-                            K=k, mini_batch_size=m,
-                            num_node_sample=n_smpl,
-                            steps_per_call=4 * window)
     steps = 4 * window
     seq.run(steps)
     win.run(steps)
-    win_p.run(steps)
     np.testing.assert_allclose(np.asarray(win.state.pi),
                                np.asarray(seq.state.pi),
                                rtol=1e-6, atol=1e-9)
-    np.testing.assert_allclose(np.asarray(win_p.state.pi),
-                               np.asarray(win.state.pi),
-                               rtol=1e-5, atol=1e-8)
-    np.testing.assert_allclose(np.asarray(win_p.state.theta),
-                               np.asarray(win.state.theta),
-                               rtol=1e-5, atol=1e-8)
-    seq.close(); win.close(); win_p.close()
+    np.testing.assert_allclose(np.asarray(win.state.theta),
+                               np.asarray(seq.state.theta),
+                               rtol=1e-6, atol=1e-9)
+    seq.close(); win.close()
 
 
 def test_window_requires_fast_path():
